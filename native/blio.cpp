@@ -1,11 +1,11 @@
-// blio: native host-side IO kernels for blacklight_tpu.
+// blio: native host-side IO kernels for blacklight.
 //
 // Plays the role the reference implements in C++ for its data loader and
 // output writer (src/simulation_reader/hdf5_format_*.cpp decode loops,
 // src/output_writer/zip_format.cpp CRC32 + container): the hot host-side
 // byte work - big-array transposes/repacks when ingesting GRMHD dumps, and
 // CRC32 for the npz/ZIP container - implemented as a small C library with
-// OpenMP parallel loops, exposed to Python through ctypes. The TPU compute
+// OpenMP parallel loops, exposed to Python through ctypes. The device compute
 // path stays JAX/XLA; this covers the host runtime around it.
 //
 // Build: make -C native   (g++ -O3 -fopenmp -shared -fPIC)

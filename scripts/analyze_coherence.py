@@ -1,10 +1,10 @@
 """Measure ray/grid coherence statistics on the benchmark workload.
 
-Design inputs for the fused simulation-path kernel: the XLA sampler is
-gather-rate-bound (~90M idx/s regardless of batching), so the only way to
-break the floor is to fetch each grid cell FEWER times. Two exploitable
-structures, both measured here on the real bench rays (rk4, 1024^2 camera,
-2000 steps, mock 128x64x64 grid):
+Design inputs for the windowed sampler (grid/wavefront.py): where the
+sampler is bound by the rate of gather indices, the way past that floor
+is to fetch each grid cell FEWER times. Two exploitable structures, both
+measured here on the bench rays (rk4, 1024^2 camera, 2000 steps, mock
+128x64x64 grid):
 
   1. ALONG-RAY runs: consecutive steps that stay inside the same cell need
      no refetch (identical corner values). Reported: mean run length and
@@ -49,12 +49,12 @@ def main():
              "--n_ph", str(n_ph), "--r_min", "1.916", "--r_max", "52.2",
              "--pert_amp", "0.1"], check=True)
 
-    from blacklight_tpu import read_config
-    from blacklight_tpu import pipeline
-    from blacklight_tpu.pipeline_simulation import load_grid
-    from blacklight_tpu.pipeline import make_camera
-    from blacklight_tpu.ops import geodesic as geo
-    from blacklight_tpu.ops import sks
+    from blacklight import read_config
+    from blacklight import pipeline
+    from blacklight.pipeline_simulation import load_grid
+    from blacklight.pipeline import make_camera
+    from blacklight.ops import geodesic as geo
+    from blacklight.ops import sks
 
     fixtures = root / "tests/fixtures"
     cfg = read_config(str(fixtures / "golden_sim_rk4_32.input"))

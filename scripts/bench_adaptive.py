@@ -27,7 +27,7 @@ def main():
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
-    from blacklight_tpu.utils.cache import enable_compilation_cache
+    from blacklight.utils.cache import enable_compilation_cache
     enable_compilation_cache()
 
     root = pathlib.Path(__file__).resolve().parents[1]
@@ -40,7 +40,7 @@ def main():
              "--n_ph", str(n_ph), "--r_min", "1.916", "--r_max", "52.2",
              "--pert_amp", "0.1"], check=True)
 
-    from blacklight_tpu import pipeline, read_config
+    from blacklight import pipeline, read_config
 
     cfg = read_config(str(root / "tests/fixtures/golden_adaptive_32.input"))
     cfg.simulation_file = mock

@@ -31,10 +31,6 @@ def main():
                          "pose) through the full geodesic integration; "
                          "works at float32 (the dp controller's pow/div "
                          "VJPs are float32-sanitized, ops/geodesic.py)")
-    ap.add_argument("--scan", action="store_true",
-                    help="force the XLA-scan reverse-mode path; default "
-                         "(cn0-only, float32) uses the Pallas kernel's "
-                         "custom_vjp (in-kernel forward-mode tangents)")
     args = ap.parse_args()
 
     import jax
@@ -45,11 +41,11 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from blacklight_tpu import pipeline, read_config
-    from blacklight_tpu.camera import make_camera
-    from blacklight_tpu.models import formula as formula_model
-    from blacklight_tpu.transfer.unpolarized import (ImageOptions,
-                                                     integrate_unpolarized)
+    from blacklight import pipeline, read_config
+    from blacklight.camera import make_camera
+    from blacklight.models import formula as formula_model
+    from blacklight.transfer.unpolarized import (ImageOptions,
+                                                 integrate_unpolarized)
 
     root = pathlib.Path(__file__).resolve().parents[1]
     cfg = read_config(str(root / "tests/fixtures/golden_formula_32.input"))
@@ -80,24 +76,7 @@ def main():
         return jnp.sum(img["I_nu"])
 
     argnums = (0, 1) if args.pose else (0,)
-    use_kernel = (not args.pose and not args.scan
-                  and args.precision == "float32")
-    if use_kernel:
-        from blacklight_tpu.ops.pallas_formula import \
-            make_formula_vjp_renderer
-        render_k = make_formula_vjp_renderer(
-            freqs, params, fparams, mass_msun, np.asarray(geom.cam_x),
-            float(formula_model.formula_log_j_scale(fparams)),
-            fallback_nan=False, interpret=args.cpu)
-
-        def total_flux_kernel(cn0, pos, dirs, moms):
-            i_img, _, _ = render_k(cn0, pos, dirs, moms)
-            return jnp.sum(i_img)
-
-        grad_fn = jax.jit(jax.value_and_grad(total_flux_kernel,
-                                             argnums=(0,)))
-    else:
-        grad_fn = jax.jit(jax.value_and_grad(total_flux, argnums=argnums))
+    grad_fn = jax.jit(jax.value_and_grad(total_flux, argnums=argnums))
 
     n = args.res * args.res
     tile = args.tile
@@ -135,7 +114,6 @@ def main():
     print(json.dumps({
         "res": args.res, "steps": args.steps, "precision": args.precision,
         "mode": "forward+backward", "wrt": "cn0+pose" if args.pose else "cn0",
-        "path": "pallas_vjp" if use_kernel else "scan",
         "time_s": round(t, 2),
         "compile_s": round(compile_s, 1),
         "rays_per_s": round(n / t, 1),

@@ -56,11 +56,11 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from blacklight_tpu import pipeline, read_config
-    from blacklight_tpu.camera import make_camera
-    from blacklight_tpu.pipeline_simulation import (
+    from blacklight import pipeline, read_config
+    from blacklight.camera import make_camera
+    from blacklight.pipeline_simulation import (
         load_grid, make_simulation_coeff_fns)
-    from blacklight_tpu.transfer.unpolarized import (
+    from blacklight.transfer.unpolarized import (
         ImageOptions, integrate_unpolarized)
 
     fixtures = root / "tests/fixtures"
@@ -81,7 +81,7 @@ def main():
     opts = ImageOptions(fallback_nan=False)
 
     if polarized:
-        from blacklight_tpu.transfer.polarized import integrate_polarized
+        from blacklight.transfer.polarized import integrate_polarized
 
         def loss(prim, pos, dirs, moms):
             grid = dataclasses.replace(grid0, prim=prim)

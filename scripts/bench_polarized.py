@@ -1,8 +1,8 @@
-"""Polarized-path A/B benchmark (BASELINE.md protocol).
+"""Polarized-path benchmark (BASELINE.md protocol).
 
 Renders the golden_polarized_rk4 physics (mock Athena++ grid, rk4
 geodesics, 512-step rays, thermal synchrotron, full IQUV) as ONE jit call
-per batch size and reports rays/s. Run on the TPU chip:
+per batch size and reports rays/s. Run on the GPU:
 
     python scripts/bench_polarized.py [--steps 512] [--sizes 64,128]
 
@@ -13,7 +13,6 @@ batch-bound (healthy) or op-overhead-bound (the round-1 pathology:
 
 import argparse
 import json
-import os
 import pathlib
 import sys
 import time
@@ -27,16 +26,6 @@ def main():
     ap.add_argument("--sizes", default="64,128")
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--precision", default="float32")
-    ap.add_argument("--no-kernel", action="store_true",
-                    help="force the exact XLA streaming path (the fused "
-                         "polarized Pallas kernel routes automatically on "
-                         "TPU when eligible)")
-    ap.add_argument("--ab", action="store_true",
-                    help="render each size through BOTH paths and print "
-                         "kernel-vs-XLA parity statistics")
-    ap.add_argument("--tiles", type=int, default=0,
-                    help="kernel-protocol throughput: render this many "
-                         "16384-ray chunks of a 1024^2 camera (0 = off)")
     args = ap.parse_args()
 
     import jax
@@ -45,8 +34,8 @@ def main():
     if args.precision == "float64":
         jax.config.update("jax_enable_x64", True)
 
-    from blacklight_tpu import read_config
-    from blacklight_tpu.pipeline_simulation import make_simulation_renderer
+    from blacklight import read_config
+    from blacklight.pipeline_simulation import make_simulation_renderer
 
     fixtures = pathlib.Path(__file__).resolve().parents[1] / "tests/fixtures"
     cfg = read_config(str(fixtures / "golden_polarized_rk4_32.input"))
@@ -54,117 +43,10 @@ def main():
     cfg.precision = args.precision
     cfg.ray_max_steps = args.steps
 
-    if args.ab:
-        # Production protocol: a 1024^2 camera's coherent 32x32-pixel
-        # tiles (the bench dispatch geometry - brick coherence assumes
-        # production pixel density), kernel-computed rays compared
-        # directly against the exact XLA path; Q/U/V gated as fractions
-        # of the Stokes-I scale (V crosses zero over the image).
-        import numpy as np
-        cfg.camera_resolution = 1024
-        fn_k, geom, rays, frequencies, _ = make_simulation_renderer(
-            cfg, kernel="force")
-        fn_x, _, _, _, _ = make_simulation_renderer(cfg, kernel=False)
-        res, tile = 1024, 32
-        patch = (np.arange(tile * tile).reshape(4, 8, 2, 16)
-                 .transpose(0, 2, 1, 3).reshape(-1))
-        sel = []
-        for row0, col0 in ((240, 240), (256, 640), (496, 496), (128, 512)):
-            t = (np.arange(row0, row0 + tile)[:, None] * res
-                 + np.arange(col0, col0 + tile)[None, :]).reshape(-1)
-            sel.append(t[patch])
-        sel = np.concatenate(sel)
-        P = np.asarray(rays.positions)[sel]
-        D = np.asarray(rays.directions)[sel]
-        M = np.asarray(rays.momentum_factors)[sel]
-        img_k = fn_k(P, D, M)
-        img_x = fn_x(P, D, M)
-        fb = np.asarray(img_k.get("_kernel_fallback",
-                                  np.zeros(len(sel), bool)))
-        geo_same = ((np.asarray(img_k["_flags"])
-                     == np.asarray(img_x["_flags"]))
-                    & (np.asarray(img_k["_n_samples"])
-                       == np.asarray(img_x["_n_samples"])))
-        np.savez("/tmp/pol_ab_dump.npz", fb=fb, geo=geo_same,
-                 **{f"k_{k}": np.asarray(img_k[k]) for k in
-                    ("I_nu", "Q_nu", "U_nu", "V_nu", "_flags",
-                     "_n_samples")},
-                 **{f"x_{k}": np.asarray(img_x[k]) for k in
-                    ("I_nu", "Q_nu", "U_nu", "V_nu", "_flags",
-                     "_n_samples")})
-        stats = {"B": int(len(sel)),
-                 "fallback_frac": round(float(fb.mean()), 4),
-                 "geo_agree": round(float(geo_same.mean()), 5)}
-        i_scale = float(np.nanmax(np.abs(img_x["I_nu"])))
-        ok = geo_same & ~fb
-        for k in ("I_nu", "Q_nu", "U_nu", "V_nu"):
-            a = np.asarray(img_k[k])[ok]
-            b = np.asarray(img_x[k])[ok]
-            nan_same = bool((np.isnan(a) == np.isnan(b)).all())
-            if k == "I_nu":
-                rel = np.abs(a - b) / (np.abs(b) + i_scale * 1e-6)
-            else:
-                rel = np.abs(a - b) / i_scale
-            stats[k] = {"nan_same": nan_same,
-                        "max": float(np.nanmax(rel)),
-                        "mean": float(np.nanmean(rel))}
-        print(json.dumps(stats))
-        return
-
-    if args.tiles:
-        # Kernel-protocol throughput: 1024^2 camera raster split into
-        # 32x32-pixel tiles (8x16-pixel sublane patches), dispatched in
-        # fixed 16384-ray chunks so one executable serves the image
-        # (bench_simulation.py geometry).
-        import numpy as np
-        cfg.camera_resolution = 1024
-        render_fn, geom, rays, frequencies, mass = make_simulation_renderer(
-            cfg, kernel=False if args.no_kernel else "force")
-        res, tile = 1024, 32
-        n = res * res
-        idx = np.arange(n).reshape(res, res)
-        order = idx.reshape(res // tile, tile, res // tile,
-                            tile).transpose(0, 2, 1, 3).reshape(-1)
-        patch = (np.arange(tile * tile).reshape(4, 8, 2, 16)
-                 .transpose(0, 2, 1, 3).reshape(-1))
-        order = order.reshape(-1, tile * tile)[:, patch].reshape(-1)
-        P = np.asarray(rays.positions)[order]
-        D = np.asarray(rays.directions)[order]
-        M = np.asarray(rays.momentum_factors)[order]
-        chunk = 16384
-        nchunks = args.tiles if args.tiles > 0 else n // chunk
-
-        def render_some():
-            outs = []
-            for i in range(0, nchunks * chunk, chunk):
-                outs.append(render_fn(P[i:i + chunk], D[i:i + chunk],
-                                      M[i:i + chunk]))
-            return outs
-
-        t0 = time.perf_counter()
-        outs = render_some()
-        compile_s = time.perf_counter() - t0
-        times = []
-        for _ in range(2):
-            t0 = time.perf_counter()
-            outs = render_some()
-            times.append(time.perf_counter() - t0)
-        t = min(times)
-        import numpy as np
-        fallback = sum(int(np.asarray(o.get("_kernel_fallback", 0)).sum())
-                       for o in outs)
-        nrays = nchunks * chunk
-        print(json.dumps({
-            "B": nrays, "steps": args.steps, "time_s": round(t, 3),
-            "compile_s": round(compile_s, 1),
-            "rays_per_s": round(nrays / t, 1),
-            "fallback_frac": round(fallback / nrays, 4)}))
-        return
-
     for res in [int(s) for s in args.sizes.split(",")]:
         cfg.camera_resolution = res
         render_fn, geom, rays, frequencies, mass = make_simulation_renderer(
-            cfg, kernel=False if args.no_kernel else "force")
+            cfg)
         n = res * res
         t0 = time.perf_counter()
         img = render_fn(rays.positions, rays.directions,

@@ -1,13 +1,12 @@
 """Microbenchmark: XLA-side primitives for the windowed "wavefront" sampler.
 
-Design under test (fused simulation kernel, VERDICT r2 item 1): instead of
-one packed-corner gather per (ray, step) — per-index-rate-bound at
-~40-90 M idx/s — batch W steps per window, dedup the window's touched
-cells per ray subtile (measured: <=768 unique per 1024-ray x 128-step
-window vs 131k naive), gather only unique packed columns from HBM, and
-expand per-(ray, step) values from the small window table.
+Design under test (grid/wavefront.py): instead of one packed-corner
+gather per (ray, step), batch W steps per window, dedup the window's
+touched cells per ray subtile (scripts/analyze_coherence.py counts them),
+gather only unique packed columns from HBM, and expand per-(ray, step)
+values from the small window table.
 
-Measures, on the real chip (or --cpu):
+Measures, on the GPU (or --cpu):
   (a) jnp.sort / sort_key_val rates at window sizes (the dedup build),
   (b) the FULL window-table build: sort + unique-flag + cumsum + scatter
       (table ids and per-sample local ids),

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Total flux (Jy) from a blacklight_tpu output file.
+"""Total flux (Jy) from a blacklight output file.
 
 Capability parity with the reference's calculate_flux.py (238 lines): sums
 I_nu over the image plane, converting specific intensity to flux density

@@ -399,7 +399,7 @@ def write_iharm3d(path, fields, p):
     prims = prims.transpose(3, 2, 1, 0).astype(np.float32)
 
     with h5py.File(path, "w") as f:
-        f.create_dataset("header/version", data=[np.bytes_("mock-blacklight-tpu")])
+        f.create_dataset("header/version", data=[np.bytes_("mock-blacklight")])
         f.create_dataset("header/gam", data=p["gamma_adi"], dtype=np.float64)
         f.create_dataset("header/n1", data=p["n_r"], dtype=np.int32)
         f.create_dataset("header/n2", data=p["n_th"], dtype=np.int32)
@@ -433,7 +433,7 @@ def write_iharm3d_fmks(path, fields, p, hslope=0.3, mks_smooth=0.5,
     sampling path."""
     import h5py
 
-    from blacklight_tpu.grid import mks
+    from blacklight.grid import mks
 
     lrf, phf = fields["lrf"], fields["phf"]
     n_r, n_th, n_ph = p["n_r"], p["n_th"], p["n_ph"]
@@ -523,7 +523,7 @@ def write_iharm3d_fmks(path, fields, p, hslope=0.3, mks_smooth=0.5,
     prims = prims.transpose(3, 2, 1, 0).astype(np.float32)
 
     with h5py.File(path, "w") as f:
-        f.create_dataset("header/version", data=[np.bytes_("mock-blacklight-tpu")])
+        f.create_dataset("header/version", data=[np.bytes_("mock-blacklight")])
         f.create_dataset("header/gam", data=p["gamma_adi"], dtype=np.float64)
         f.create_dataset("header/n1", data=n_r, dtype=np.int32)
         f.create_dataset("header/n2", data=n_th, dtype=np.int32)

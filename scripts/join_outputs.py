@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Merge outputs from multiple blacklight_tpu runs into one npz.
+"""Merge outputs from multiple blacklight runs into one npz.
 
 Capability parity with the reference's join_outputs.py (168 lines): given
 several npz outputs of the same camera (e.g. runs refined over different

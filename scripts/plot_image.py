@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Plot an intensity (or auxiliary) image from a blacklight_tpu npz output.
+"""Plot an intensity (or auxiliary) image from a blacklight npz output.
 
 Capability parity with the reference's plot_image.py (461 lines): renders
 the chosen quantity (I_nu, Stokes, time/length/lambda/emission/tau,

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Plot a false-color volume rendering from a blacklight_tpu npz output.
+"""Plot a false-color volume rendering from a blacklight npz output.
 
 Capability parity with the reference's plot_render.py (206 lines): converts
 the stored CIE XYZ rendering to sRGB with optional exposure scaling and

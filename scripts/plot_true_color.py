@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""True-color plot of a multi-frequency blacklight_tpu output.
+"""True-color plot of a multi-frequency blacklight output.
 
 Capability parity with the reference's plot_true_color.py (491 lines): the
 image frequencies are mapped (linearly in wavelength) onto the visible

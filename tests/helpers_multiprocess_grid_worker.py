@@ -33,7 +33,7 @@ def main():
     repo = pathlib.Path(__file__).resolve().parents[1]
     sys.path.insert(0, str(repo))
 
-    from blacklight_tpu.parallel import distributed
+    from blacklight.parallel import distributed
 
     distributed.initialize(coordinator_address=f"localhost:{port}",
                            num_processes=int(nproc), process_id=int(pid))
@@ -42,11 +42,11 @@ def main():
     import numpy as np
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-    from blacklight_tpu import pipeline, read_config
-    from blacklight_tpu.camera import make_camera
-    from blacklight_tpu.parallel.grid_sharding import make_sharded_renderer
-    from blacklight_tpu.pipeline_simulation import load_grid
-    from blacklight_tpu.transfer.unpolarized import ImageOptions
+    from blacklight import pipeline, read_config
+    from blacklight.camera import make_camera
+    from blacklight.parallel.grid_sharding import make_sharded_renderer
+    from blacklight.pipeline_simulation import load_grid
+    from blacklight.transfer.unpolarized import ImageOptions
 
     fixtures = repo / "tests/fixtures"
     cfg = read_config(str(fixtures / "golden_sim_rk4_32.input"))

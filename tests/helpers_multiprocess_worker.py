@@ -28,7 +28,7 @@ def main():
     repo = pathlib.Path(__file__).resolve().parents[1]
     sys.path.insert(0, str(repo))
 
-    from blacklight_tpu.parallel import distributed
+    from blacklight.parallel import distributed
 
     distributed.initialize(coordinator_address=f"localhost:{port}",
                            num_processes=int(nproc), process_id=int(pid))
@@ -41,10 +41,10 @@ def main():
     import numpy as np
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from blacklight_tpu import pipeline, read_config
-    from blacklight_tpu.camera import make_camera
-    from blacklight_tpu.models import formula as formula_model
-    from blacklight_tpu.transfer.unpolarized import (ImageOptions,
+    from blacklight import pipeline, read_config
+    from blacklight.camera import make_camera
+    from blacklight.models import formula as formula_model
+    from blacklight.transfer.unpolarized import (ImageOptions,
                                                      integrate_unpolarized)
 
     cfg = read_config(str(repo / "tests/fixtures/golden_formula_32.input"))

@@ -8,8 +8,8 @@ numpy_format.cpp:291-527.
 import numpy as np
 import pytest
 
-from blacklight_tpu import adaptive as ad
-from blacklight_tpu.utils.config import parse_config
+from blacklight import adaptive as ad
+from blacklight.utils.config import parse_config
 
 
 CONFIG = """
@@ -130,7 +130,7 @@ def test_adaptive_run_refines_and_matches_direct_render(tmp_path):
     """Level-1 adaptive pixels must equal the same pixels of a straight
     double-resolution render: child blocks carry the exact fractional
     pixel coordinates of the finer grid (camera.cpp:465-499)."""
-    from blacklight_tpu import pipeline
+    from blacklight import pipeline
 
     cfg = make_cfg(tmp_path, res=32, max_level=1)
     arrays = pipeline.run(cfg, quiet=True)
@@ -161,7 +161,7 @@ adaptive_region_1_x_max = 6.0
 adaptive_region_1_y_min = -6.0
 adaptive_region_1_y_max = 6.0
 """
-    from blacklight_tpu import pipeline
+    from blacklight import pipeline
 
     cfg = make_cfg(tmp_path, res=32, max_level=1, num_regions=1,
                    regions=regions)

@@ -12,16 +12,16 @@ and constant extrapolation (simulation_sampling.cpp:1068-1321).
 import numpy as np
 import pytest
 
-from blacklight_tpu import read_config
-from blacklight_tpu.pipeline_simulation import render_simulation_image
+from blacklight import read_config
+from blacklight.pipeline_simulation import render_simulation_image
 
 
 @pytest.fixture(scope="module")
 def amr_grid(fixtures_dir):
     import jax.numpy as jnp  # noqa: F401 (ensures jax configured)
 
-    from blacklight_tpu.grid.amr import with_amr_table
-    from blacklight_tpu.grid.athena import load_athdf, with_packed_corners
+    from blacklight.grid.amr import with_amr_table
+    from blacklight.grid.athena import load_athdf, with_packed_corners
 
     g = load_athdf(str(fixtures_dir / "mock_amr.athdf"))
     return with_packed_corners(with_amr_table(g))
@@ -57,7 +57,7 @@ def test_amr_sampler_matches_host_transcription(amr_grid):
     points (cross-checks every FindNearbyInds case batched logic)."""
     import jax.numpy as jnp
 
-    from blacklight_tpu.grid.sampling import SamplerOptions, sample_grid
+    from blacklight.grid.sampling import SamplerOptions, sample_grid
     from helpers_amr_host import sample_point
 
     g = amr_grid
@@ -103,9 +103,9 @@ def test_amr_cks_grid_matches_host_transcription():
     built in memory."""
     import jax.numpy as jnp
 
-    from blacklight_tpu.grid.amr import with_amr_table
-    from blacklight_tpu.grid.athena import SimulationGrid
-    from blacklight_tpu.grid.sampling import SamplerOptions, sample_grid
+    from blacklight.grid.amr import with_amr_table
+    from blacklight.grid.athena import SimulationGrid
+    from blacklight.grid.sampling import SamplerOptions, sample_grid
     from helpers_amr_host import sample_point
 
     rng = np.random.default_rng(11)

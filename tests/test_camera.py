@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from blacklight_tpu import read_config
-from blacklight_tpu.camera import make_camera
-from blacklight_tpu.ops import geometry
+from blacklight import read_config
+from blacklight.camera import make_camera
+from blacklight.ops import geometry
 
 
 @pytest.fixture(scope="module")
@@ -42,8 +42,8 @@ def test_momentum_factor_normalization(formula_cfg):
 
 
 def test_frequency_tables():
-    from blacklight_tpu.camera import image_frequency_table
-    from blacklight_tpu.constants import FrequencySpacing
+    from blacklight.camera import image_frequency_table
+    from blacklight.constants import FrequencySpacing
     f = image_frequency_table(1, 2.3e11)
     np.testing.assert_allclose(f, [2.3e11])
     f = image_frequency_table(3, 0.0, 1e10, 1e12, FrequencySpacing.lin_freq)

@@ -9,9 +9,9 @@ import pytest
 
 sys.path.insert(0, str(pathlib.Path(__file__).parent.parent / "scripts"))
 
-from blacklight_tpu import pipeline  # noqa: E402
-from blacklight_tpu.utils.config import parse_config  # noqa: E402
-from blacklight_tpu.utils.errors import BlacklightError  # noqa: E402
+from blacklight import pipeline  # noqa: E402
+from blacklight.utils.config import parse_config  # noqa: E402
+from blacklight.utils.errors import BlacklightError  # noqa: E402
 
 
 def formula_cfg(tmp_path, **kv):

@@ -4,9 +4,9 @@ import math
 
 import pytest
 
-from blacklight_tpu.constants import ModelType, RayIntegrator, RenderType
-from blacklight_tpu.utils.config import parse_config
-from blacklight_tpu.utils.errors import BlacklightError
+from blacklight.constants import ModelType, RayIntegrator, RenderType
+from blacklight.utils.config import parse_config
+from blacklight.utils.errors import BlacklightError
 
 
 def test_basic_parse():
@@ -125,7 +125,7 @@ def test_reference_examples_parse():
     ref_inputs = pathlib.Path("/root/reference/input")
     if not ref_inputs.exists():
         pytest.skip("reference inputs not available")
-    from blacklight_tpu.utils.config import read_config
+    from blacklight.utils.config import read_config
     for p in sorted(ref_inputs.glob("*.input")):
         cfg = read_config(str(p))
         assert cfg.model_type is not None

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from blacklight_tpu import read_config
-from blacklight_tpu import pipeline
+from blacklight import read_config
+from blacklight import pipeline
 
 
 def render(fixtures_dir, name, **overrides):
@@ -78,7 +78,7 @@ def test_cli_writes_npz(fixtures_dir, tmp_path):
     inp.write_text(src)
     env = {"JAX_PLATFORMS": "cpu", "PYTHONPATH": "/root/repo",
            "PATH": "/usr/bin:/bin:/usr/local/bin", "HOME": "/root"}
-    result = subprocess.run([sys.executable, "-m", "blacklight_tpu", str(inp)],
+    result = subprocess.run([sys.executable, "-m", "blacklight", str(inp)],
                             capture_output=True, text=True, env=env, timeout=600)
     assert result.returncode == 0, result.stderr
     data = np.load(tmp_path / "out.npz")
@@ -97,9 +97,9 @@ def test_gradients_wrt_emission_params(fixtures_dir):
     """New capability: d(image)/d(formula params) via jax.grad matches FD."""
     import jax
     import jax.numpy as jnp
-    from blacklight_tpu.camera import make_camera
-    from blacklight_tpu.models import formula as formula_model
-    from blacklight_tpu.transfer.unpolarized import ImageOptions, integrate_unpolarized
+    from blacklight.camera import make_camera
+    from blacklight.models import formula as formula_model
+    from blacklight.transfer.unpolarized import ImageOptions, integrate_unpolarized
 
     cfg = read_config(str(fixtures_dir / "golden_formula_32.input"))
     cfg.camera_resolution = 4
@@ -111,7 +111,7 @@ def test_gradients_wrt_emission_params(fixtures_dir):
     spin = cfg.require("formula_spin")
     geom, rays, freqs = make_camera(cfg, bh_m=1.0, bh_a=spin)
     params = pipeline.geodesic_params_from_config(cfg, 1.0, spin)
-    from blacklight_tpu.constants import RayIntegrator
+    from blacklight.constants import RayIntegrator
     import dataclasses
     params = dataclasses.replace(params, integrator=RayIntegrator.rk4)
     fparams = formula_model.formula_params_from_config(cfg)

@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from blacklight_tpu.constants import RayIntegrator, RayTerminate
-from blacklight_tpu.ops import geodesic, geometry
+from blacklight.constants import RayIntegrator, RayTerminate
+from blacklight.ops import geodesic, geometry
 
 
 def make_params(integrator=RayIntegrator.rk4, spin=0.9, flat=False,

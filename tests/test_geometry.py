@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from blacklight_tpu.ops import geometry
+from blacklight.ops import geometry
 
 SPINS = [0.0, 0.5, 0.9, -0.7]
 
@@ -103,6 +103,24 @@ def test_null_renormalization(spin):
     np.testing.assert_allclose(norm2, 0.0, atol=1e-10)
     # p_0 unchanged
     np.testing.assert_allclose(p_fixed[:, 0], p_cov_pert[:, 0], atol=0)
+
+
+def test_renormalization_zero_denominator_keeps_momentum():
+    """Backward-traced momenta diverge at the horizon, where float32 can
+    cancel the renormalization quadratic's denominator to exactly 0: the
+    step then keeps its momentum (factor 1) instead of an infinite one,
+    with a finite gradient. On the axis at r = 2 of a non-spinning hole
+    f = 1, so with p along l, a = |p|^2 - f (l.p)^2 = 0 and b < 0 selects
+    the (d - b) / 2a root."""
+    f32 = jnp.float32
+
+    def factor(p0):
+        return geometry.renormalize_factor_c(
+            f32(0.0), f32(0.0), f32(2.0), p0, f32(0.0), f32(0.0), f32(1.0),
+            0.0)
+
+    assert float(factor(f32(-1.0))) == 1.0
+    assert np.isfinite(float(jax.grad(factor)(f32(-1.0))))
 
 
 def test_horizon_radius():

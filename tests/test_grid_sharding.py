@@ -5,14 +5,14 @@ import pytest
 
 import jax
 
-from blacklight_tpu import read_config, pipeline
-from blacklight_tpu.camera import make_camera
-from blacklight_tpu.grid.athena import with_packed_corners
-from blacklight_tpu.parallel.grid_sharding import (
+from blacklight import read_config, pipeline
+from blacklight.camera import make_camera
+from blacklight.grid.athena import with_packed_corners
+from blacklight.parallel.grid_sharding import (
     make_grid_mesh, make_sharded_renderer, split_prim_cells)
-from blacklight_tpu.pipeline_simulation import (
+from blacklight.pipeline_simulation import (
     _sampler_options, load_grid, make_simulation_coeff_fns)
-from blacklight_tpu.transfer.unpolarized import ImageOptions, integrate_unpolarized
+from blacklight.transfer.unpolarized import ImageOptions, integrate_unpolarized
 
 
 @pytest.fixture(scope="module")

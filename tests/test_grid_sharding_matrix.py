@@ -22,13 +22,13 @@ import jax
 sys.path.insert(0, str(pathlib.Path(__file__).parent.parent / "scripts"))
 sys.path.insert(0, str(pathlib.Path(__file__).parent))
 
-from blacklight_tpu import read_config, pipeline
-from blacklight_tpu.camera import make_camera
-from blacklight_tpu.parallel.grid_sharding import (
+from blacklight import read_config, pipeline
+from blacklight.camera import make_camera
+from blacklight.parallel.grid_sharding import (
     make_grid_mesh, make_sharded_renderer)
-from blacklight_tpu.pipeline_simulation import (
+from blacklight.pipeline_simulation import (
     load_grid, make_simulation_coeff_fns)
-from blacklight_tpu.transfer.unpolarized import (
+from blacklight.transfer.unpolarized import (
     ImageOptions, integrate_unpolarized)
 
 
@@ -64,7 +64,7 @@ def _replicated(cfg, grid, geom, rays, freqs, params, mass_msun,
         polarized=polarized, snapshot_time=snapshot_time)
     opts = ImageOptions.from_config(cfg)
     if polarized:
-        from blacklight_tpu.transfer.polarized import integrate_polarized
+        from blacklight.transfer.polarized import integrate_polarized
         img = jax.jit(lambda p, d, m: integrate_polarized(
             p, d, m, freqs, params=params, coeff_fn=coeff_fn, opts=opts,
             mass_msun=mass_msun, camera_x=geom.cam_x,
@@ -122,7 +122,7 @@ def test_sharded_amr_block_interp_matches_replicated(fixtures_dir):
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
     grid, snapshot_time, geom, rays, freqs, params, mass_msun = _setup(cfg)
-    from blacklight_tpu.grid.amr import with_amr_table
+    from blacklight.grid.amr import with_amr_table
     grid = with_amr_table(grid)
     mesh = make_grid_mesh(2, 4)     # mock_amr has n_k=4 planes per block
     render = make_sharded_renderer(

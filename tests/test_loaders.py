@@ -16,11 +16,11 @@ sys.path.insert(0, str(pathlib.Path(__file__).parent.parent / "scripts"))
 
 import generate_mock_simulation as gen  # noqa: E402
 
-from blacklight_tpu import read_config  # noqa: E402
-from blacklight_tpu.grid.athena import load_athdf  # noqa: E402
-from blacklight_tpu.grid.athenak import load_athenak  # noqa: E402
-from blacklight_tpu.grid.harm3d import load_harm3d  # noqa: E402
-from blacklight_tpu.grid.iharm3d import load_iharm3d  # noqa: E402
+from blacklight import read_config  # noqa: E402
+from blacklight.grid.athena import load_athdf  # noqa: E402
+from blacklight.grid.athenak import load_athenak  # noqa: E402
+from blacklight.grid.harm3d import load_harm3d  # noqa: E402
+from blacklight.grid.iharm3d import load_iharm3d  # noqa: E402
 
 
 BASE_CONFIG = """
@@ -129,7 +129,7 @@ def mock_files(tmp_path_factory):
 def make_cfg(paths, fmt, key, coord="sks", **overrides):
     text = BASE_CONFIG.format(fmt=fmt, path=paths[key],
                               coord=coord, out=paths["dir"] + "/out.npz")
-    from blacklight_tpu.utils.config import parse_config
+    from blacklight.utils.config import parse_config
     cfg = parse_config(text)
     for k, v in overrides.items():
         setattr(cfg, k, v)
@@ -137,7 +137,7 @@ def make_cfg(paths, fmt, key, coord="sks", **overrides):
 
 
 def render(paths, fmt, key, coord="sks", **overrides):
-    from blacklight_tpu.pipeline_simulation import render_simulation_image
+    from blacklight.pipeline_simulation import render_simulation_image
     cfg = make_cfg(paths, fmt, key, coord, **overrides)
     image, rays, freqs, mass = render_simulation_image(cfg)
     return image["I_nu"][:, 0].reshape(16, 16)
@@ -172,7 +172,7 @@ def test_cross_format_prim_parity(mock_files):
 def test_fmks_map_roundtrip():
     """SKS->FMKS inverse table composed with the forward theta formula is
     the identity to table resolution."""
-    from blacklight_tpu.grid import mks
+    from blacklight.grid import mks
     p = mks.FmksParams(h=0.3, r_in=2.0, poly_xt=0.82, poly_alpha=14.0,
                        mks_smooth=0.5)
     table, dr, dth = mks.generate_sks_map(p, 2.0, 30.0, n1=256, n2=256)
@@ -207,7 +207,7 @@ def test_image_fmks_matches_athena_grid_aligned(tmp_path):
     storage precision. (Trilinear weights legitimately differ - FMKS
     interpolates in native x^2, the reference does the same,
     simulation_sampling.cpp:412-424 - so interp mode is not exact.)"""
-    from blacklight_tpu.grid import mks as mksmod
+    from blacklight.grid import mks as mksmod
 
     p = dict(gen.DEFAULTS)
     params = mksmod.FmksParams(h=0.3, r_in=p["r_min"], poly_xt=0.82,
@@ -274,10 +274,10 @@ def test_code_kappa_plasma_model(tmp_path):
     paths = {"athena": str(tmp_path / "mk.athdf"), "dir": str(tmp_path)}
     cfg = make_cfg(paths, "athena", "athena")
     cfg.plasma_model = __import__(
-        "blacklight_tpu.constants", fromlist=["PlasmaModel"]
+        "blacklight.constants", fromlist=["PlasmaModel"]
     ).PlasmaModel.code_kappa
     cfg.simulation_kappa_name = "kappa"
-    from blacklight_tpu.pipeline_simulation import render_simulation_image
+    from blacklight.pipeline_simulation import render_simulation_image
     image, *_ = render_simulation_image(cfg)
     I = image["I_nu"][:, 0]
     assert np.isfinite(I).all()
@@ -292,3 +292,18 @@ def test_image_athenak_matches_athena(mock_files):
     scale = np.nanmax(I_a)
     assert np.nanmax(np.abs(I_k - I_a)) < 0.25 * scale
     assert abs(np.nansum(I_k) - np.nansum(I_a)) < 0.08 * np.nansum(I_a)
+
+
+@pytest.mark.parametrize("loader", ["athena", "iharm3d"])
+def test_hdf5_loaders_name_missing_h5py(monkeypatch, fixtures_dir, loader):
+    """Without h5py the HDF5 loaders raise a BlacklightError that names
+    it, not a bare ImportError."""
+    from blacklight.utils.errors import BlacklightError
+
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    path = str(fixtures_dir / "mock_small.athdf")
+    with pytest.raises(BlacklightError, match="h5py"):
+        if loader == "athena":
+            load_athdf(path)
+        else:
+            load_iharm3d(path, None)

@@ -60,10 +60,10 @@ def test_two_process_render_and_gradient(tmp_path, nproc):
     import jax
     import jax.numpy as jnp
 
-    from blacklight_tpu import pipeline, read_config
-    from blacklight_tpu.camera import make_camera
-    from blacklight_tpu.models import formula as formula_model
-    from blacklight_tpu.transfer.unpolarized import (ImageOptions,
+    from blacklight import pipeline, read_config
+    from blacklight.camera import make_camera
+    from blacklight.models import formula as formula_model
+    from blacklight.transfer.unpolarized import (ImageOptions,
                                                      integrate_unpolarized)
 
     fixtures = pathlib.Path(__file__).parent / "fixtures"
@@ -133,11 +133,11 @@ def test_two_process_sharded_grid(tmp_path):
     # Single-process replicated reference
     import jax
 
-    from blacklight_tpu import pipeline, read_config
-    from blacklight_tpu.camera import make_camera
-    from blacklight_tpu.pipeline_simulation import (
+    from blacklight import pipeline, read_config
+    from blacklight.camera import make_camera
+    from blacklight.pipeline_simulation import (
         load_grid, make_simulation_coeff_fns)
-    from blacklight_tpu.transfer.unpolarized import (ImageOptions,
+    from blacklight.transfer.unpolarized import (ImageOptions,
                                                      integrate_unpolarized)
 
     fixtures = pathlib.Path(__file__).parent / "fixtures"

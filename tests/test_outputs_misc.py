@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from blacklight_tpu import pipeline
-from blacklight_tpu.utils.config import parse_config
-from blacklight_tpu.utils.errors import BlacklightError
+from blacklight import pipeline
+from blacklight.utils.config import parse_config
+from blacklight.utils.errors import BlacklightError
 
 from test_adaptive import CONFIG, make_cfg
 
@@ -13,7 +13,7 @@ from test_adaptive import CONFIG, make_cfg
 def test_npy_output(tmp_path):
     cfg = make_cfg(tmp_path, res=8, max_level=0)
     cfg.output_file = str(tmp_path / "out.npy")
-    from blacklight_tpu.constants import OutputFormat
+    from blacklight.constants import OutputFormat
     cfg.output_format = OutputFormat.npy
     arrays = pipeline.run(cfg, quiet=True)
     packed = np.load(tmp_path / "out.npy")
@@ -24,7 +24,7 @@ def test_npy_output(tmp_path):
 def test_raw_output(tmp_path):
     cfg = make_cfg(tmp_path, res=8, max_level=0)
     cfg.output_file = str(tmp_path / "out.raw")
-    from blacklight_tpu.constants import OutputFormat
+    from blacklight.constants import OutputFormat
     cfg.output_format = OutputFormat.raw
     arrays = pipeline.run(cfg, quiet=True)
     raw = np.fromfile(tmp_path / "out.raw", dtype=np.float64)
@@ -33,7 +33,7 @@ def test_raw_output(tmp_path):
 
 def test_raw_rejects_adaptive(tmp_path):
     cfg = make_cfg(tmp_path, res=16, max_level=1)
-    from blacklight_tpu.constants import OutputFormat
+    from blacklight.constants import OutputFormat
     cfg.output_format = OutputFormat.raw
     with pytest.raises(BlacklightError):
         pipeline.run(cfg, quiet=True)
@@ -51,7 +51,7 @@ def test_output_camera_positions(tmp_path):
 
 def test_pinhole_camera_renders(tmp_path):
     cfg = make_cfg(tmp_path, res=8, max_level=0)
-    from blacklight_tpu.constants import CameraType
+    from blacklight.constants import CameraType
     cfg.camera_type = CameraType.pinhole
     cfg.output_camera = True
     arrays = pipeline.run(cfg, quiet=True)
@@ -81,19 +81,35 @@ def test_adaptive_two_levels(tmp_path):
             I2[b], full[v * 8:(v + 1) * 8, u * 8:(u + 1) * 8], rtol=1e-10)
 
 
-def test_compilation_cache_host_keyed(tmp_path, monkeypatch):
-    """The persistent compile cache is keyed by a per-host CPU fingerprint
-    so XLA:CPU AOT entries from one machine are never loaded on another
-    (machine-feature mismatch -> SIGILL risk)."""
-    from blacklight_tpu.utils import cache
-
-    monkeypatch.setenv("BLACKLIGHT_TPU_CACHE_DIR", str(tmp_path / "xla"))
-    used = cache.enable_compilation_cache()
-    assert used.startswith(str(tmp_path / "xla"))
-    fp = cache._host_fingerprint()
-    assert used == str(tmp_path / "xla" / fp)
-    assert len(fp) == 12 and fp == cache._host_fingerprint()  # stable
+@pytest.mark.parametrize("env_set", [True, False], ids=["env", "checkout"])
+def test_compilation_cache_placement(tmp_path, monkeypatch, env_set):
+    """With JAX_COMPILATION_CACHE_DIR set, that directory is the cache and
+    nothing else; without it, a fixed directory inside the checkout, the
+    same on every call (the path is part of each entry's key)."""
     import os
-    assert os.path.isdir(used)
+    import pathlib
+
     import jax
-    assert jax.config.jax_compilation_cache_dir == used
+
+    from blacklight.utils import cache
+
+    if env_set:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "xla"))
+        expected = str(tmp_path / "xla")
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        expected = str(pathlib.Path(__file__).resolve().parent.parent
+                       / ".jax_cache")
+    keys = ("jax_compilation_cache_dir",
+            "jax_persistent_cache_min_compile_time_secs",
+            "jax_persistent_cache_min_entry_size_bytes")
+    saved = {k: getattr(jax.config, k) for k in keys}
+    try:
+        used = cache.enable_compilation_cache()
+        assert used == expected
+        assert os.path.isdir(used)
+        assert jax.config.jax_compilation_cache_dir == expected
+        assert cache.enable_compilation_cache() == expected
+    finally:
+        for k, v in saved.items():
+            jax.config.update(k, v)

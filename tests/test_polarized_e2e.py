@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from blacklight_tpu import read_config
-from blacklight_tpu.pipeline_simulation import render_simulation_image
+from blacklight import read_config
+from blacklight.pipeline_simulation import render_simulation_image
 
 
 def render(fixtures_dir, name, **overrides):
@@ -108,9 +108,9 @@ def test_polarized_multifrequency_consistency(fixtures_dir):
     """A multi-frequency polarized call gives the same Stokes vectors per
     frequency as separate single-frequency calls (the flat (B*F,)
     component layout indexes frequencies correctly)."""
-    from blacklight_tpu import pipeline
-    from blacklight_tpu.camera import make_camera
-    from blacklight_tpu.constants import FrequencySpacing
+    from blacklight import pipeline
+    from blacklight.camera import make_camera
+    from blacklight.constants import FrequencySpacing
 
     common = dict(camera_resolution=4, ray_max_steps=800)
     cfg_m, img_m = render(fixtures_dir, "golden_polarized_rk4_32.input",
@@ -145,13 +145,13 @@ def test_polarized_streaming_matches_stored(fixtures_dir):
     not change a single bit."""
     import dataclasses as dc
 
-    from blacklight_tpu import pipeline, read_config
-    from blacklight_tpu.camera import make_camera
-    from blacklight_tpu.ops import geodesic
-    from blacklight_tpu.pipeline_simulation import (
+    from blacklight import pipeline, read_config
+    from blacklight.camera import make_camera
+    from blacklight.ops import geodesic
+    from blacklight.pipeline_simulation import (
         load_grid, make_simulation_coeff_fns)
-    from blacklight_tpu.transfer.polarized import integrate_polarized
-    from blacklight_tpu.transfer.unpolarized import ImageOptions
+    from blacklight.transfer.polarized import integrate_polarized
+    from blacklight.transfer.unpolarized import ImageOptions
 
     cfg = read_config(str(fixtures_dir / "golden_polarized_rk4_32.input"))
     cfg.simulation_file = str(fixtures_dir / "mock_small.athdf")

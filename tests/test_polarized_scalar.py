@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from blacklight_tpu.ops import connection as connection_mod
-from blacklight_tpu.transfer import polarized_coupling as pc
+from blacklight.ops import connection as connection_mod
+from blacklight.transfer import polarized_coupling as pc
 
 
 def _random_coeffs(rng, n, regime):

@@ -15,7 +15,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).parent.parent / "scripts"))
 
 import generate_mock_simulation as gen  # noqa: E402
 
-from blacklight_tpu import read_config, pipeline  # noqa: E402
+from blacklight import read_config, pipeline  # noqa: E402
 
 
 def test_adaptive_golden_parity(fixtures_dir, tmp_path):

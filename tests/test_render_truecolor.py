@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from blacklight_tpu import read_config
-from blacklight_tpu.pipeline_simulation import render_simulation_image
+from blacklight import read_config
+from blacklight.pipeline_simulation import render_simulation_image
 
 
 def render(fixtures_dir, name):
@@ -44,7 +44,7 @@ def test_true_color_rk4_exact_parity(fixtures_dir):
 
 def test_true_color_npz_output(fixtures_dir, tmp_path):
     """End-to-end npz write path for multi-frequency images."""
-    from blacklight_tpu import pipeline
+    from blacklight import pipeline
     cfg = read_config(str(fixtures_dir / "golden_true_color_rk4_32.input"))
     cfg.simulation_file = str(fixtures_dir / "mock_small.athdf")
     cfg.output_file = str(tmp_path / "tc.npz")

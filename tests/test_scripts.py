@@ -13,7 +13,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).parent))
 
 from test_adaptive import make_cfg  # noqa: E402
 
-from blacklight_tpu import pipeline  # noqa: E402
+from blacklight import pipeline  # noqa: E402
 
 
 REGION = """

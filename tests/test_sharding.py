@@ -12,12 +12,12 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from blacklight_tpu import pipeline
-from blacklight_tpu.camera import make_camera
-from blacklight_tpu.models import formula as formula_model
-from blacklight_tpu.parallel.sharding import make_mesh, shard_rays, unshard
-from blacklight_tpu.transfer.unpolarized import ImageOptions, integrate_unpolarized
-from blacklight_tpu.utils.config import parse_config
+from blacklight import pipeline
+from blacklight.camera import make_camera
+from blacklight.models import formula as formula_model
+from blacklight.parallel.sharding import make_mesh, shard_rays, unshard
+from blacklight.transfer.unpolarized import ImageOptions, integrate_unpolarized
+from blacklight.utils.config import parse_config
 
 from test_adaptive import CONFIG
 

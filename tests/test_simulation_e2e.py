@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from blacklight_tpu import read_config
-from blacklight_tpu.pipeline_simulation import render_simulation_image
+from blacklight import read_config
+from blacklight.pipeline_simulation import render_simulation_image
 
 
 def render(fixtures_dir, name, **overrides):
@@ -46,12 +46,12 @@ def test_gradient_wrt_grid_density(fixtures_dir):
     import jax
     import jax.numpy as jnp
 
-    from blacklight_tpu import pipeline
-    from blacklight_tpu.camera import make_camera
-    from blacklight_tpu.constants import RayIntegrator
-    from blacklight_tpu.pipeline_simulation import (
+    from blacklight import pipeline
+    from blacklight.camera import make_camera
+    from blacklight.constants import RayIntegrator
+    from blacklight.pipeline_simulation import (
         load_grid, make_simulation_coeff_fns)
-    from blacklight_tpu.transfer.unpolarized import (
+    from blacklight.transfer.unpolarized import (
         ImageOptions, integrate_unpolarized)
 
     cfg = read_config(str(fixtures_dir / "golden_sim_rk4_32.input"))

@@ -13,8 +13,8 @@ sys.path.insert(0, str(pathlib.Path(__file__).parent))
 
 import generate_mock_simulation as gen  # noqa: E402
 
-from blacklight_tpu import pipeline  # noqa: E402
-from blacklight_tpu.utils.config import parse_config  # noqa: E402
+from blacklight import pipeline  # noqa: E402
+from blacklight.utils.config import parse_config  # noqa: E402
 from test_loaders import BASE_CONFIG  # noqa: E402
 
 
@@ -97,7 +97,7 @@ def test_slow_light_time_variation(tmp_path):
 
 
 def test_slow_light_insufficient_files_raises(tmp_path):
-    from blacklight_tpu.utils.errors import BlacklightError
+    from blacklight.utils.errors import BlacklightError
     write_series(tmp_path, times=[0.0, 200.0], amps=[1.0, 1.0])
     cfg = slow_cfg(tmp_path, end=1, chunk=2, t_start=5000.0, dt=0.0)
     with pytest.raises(BlacklightError):
@@ -109,7 +109,7 @@ def test_slow_light_extrapolation_error(tmp_path):
     tolerance raise, exactly like the reference
     (simulation_sampling.cpp:578-616): chunk 2 at snapshot time 500 only
     holds [400, 800] while rays look back ~120 gravitational times."""
-    from blacklight_tpu.utils.errors import BlacklightError
+    from blacklight.utils.errors import BlacklightError
     write_series(tmp_path, times=[0.0, 400.0, 800.0, 1200.0],
                  amps=[0.5, 1.0, 1.5, 2.0])
     with pytest.raises(BlacklightError, match="backward in time"):
@@ -137,7 +137,7 @@ def test_slow_light_amr_golden_vs_reference(tmp_path):
     parity is exact (~1e-14) on 98% of pixels and within ~1% on the rest."""
     import pathlib
     fixtures = pathlib.Path(__file__).parent / "fixtures" / "slowamr"
-    from blacklight_tpu import read_config
+    from blacklight import read_config
     cfg = read_config(str(fixtures / "golden_slowamr.input"))
     cfg.simulation_file = str(fixtures / "amr.{5d}.athdf")
     cfg.output_file = str(tmp_path / "slowamr_{d}.npz")
@@ -169,7 +169,7 @@ def test_slow_light_amr_identical_slices_match_static(tmp_path):
         with h5py.File(dst, "r+") as f:
             f.attrs.modify("Time", np.float32(t))
 
-    from blacklight_tpu import read_config
+    from blacklight import read_config
     base = read_config(str(fixtures / "slowamr" / "golden_slowamr.input"))
     base.simulation_file = str(tmp_path / "amr.{5d}.athdf")
     base.output_file = str(tmp_path / "slow_{d}.npz")
@@ -196,7 +196,7 @@ def test_slow_light_golden_vs_reference(tmp_path):
     generator, Time attributes and densities patched per slice)."""
     import pathlib
     fixtures = pathlib.Path(__file__).parent / "fixtures" / "slowlight"
-    from blacklight_tpu import read_config
+    from blacklight import read_config
     cfg = read_config(str(fixtures / "golden_slow.input"))
     cfg.simulation_file = str(fixtures / "small.{5d}.athdf")
     cfg.output_file = str(tmp_path / "slow_{d}.npz")

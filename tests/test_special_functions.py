@@ -11,7 +11,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from blacklight_tpu.models.synchrotron import _bessel_k
+from blacklight.models.synchrotron import _bessel_k
 
 scipy_special = pytest.importorskip("scipy.special")
 

@@ -13,15 +13,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from blacklight_tpu import read_config
-from blacklight_tpu.grid.wavefront import (
+from blacklight import read_config
+from blacklight.grid.wavefront import (
     _split_bf16x3, build_window_tables, expand_onehot, gather_window_columns)
 
 
 def render_pair(fixtures_dir, name, _variants=((False, True), (True, True)),
                 **overrides):
     """Render the same config across (wavefront, wavefront_batch) variants."""
-    from blacklight_tpu.pipeline_simulation import make_simulation_renderer
+    from blacklight.pipeline_simulation import make_simulation_renderer
 
     images = []
     for wf, batch in _variants:
@@ -130,7 +130,7 @@ def test_wavefront_batched_coeffs_bit_exact(fixtures_dir):
 def test_build_brick_tables_roundtrip():
     """Brick slots address the same cells the anchors name; overflow fires
     exactly when a used anchor leaves its subtile's brick."""
-    from blacklight_tpu.grid.wavefront import (build_brick_tables,
+    from blacklight.grid.wavefront import (build_brick_tables,
                                                fetch_brick_columns)
 
     rng = np.random.default_rng(5)
@@ -181,7 +181,7 @@ def test_build_brick_tables_roundtrip():
 @pytest.mark.parametrize("interp", [True, False])
 def test_wavefront_brick_render_parity(fixtures_dir, monkeypatch, interp):
     """Brick-mode wavefront image == per-step-scan image bit for bit."""
-    from blacklight_tpu import pipeline_simulation
+    from blacklight import pipeline_simulation
 
     monkeypatch.setattr(pipeline_simulation, "WAVEFRONT_MODE", "brick")
     img_wf_off, img_wf_on = render_pair(
@@ -194,7 +194,7 @@ def test_wavefront_brick_render_parity(fixtures_dir, monkeypatch, interp):
 
 
 def test_wavefront_brick_render_parity_f32(fixtures_dir, monkeypatch):
-    from blacklight_tpu import pipeline_simulation
+    from blacklight import pipeline_simulation
 
     monkeypatch.setattr(pipeline_simulation, "WAVEFRONT_MODE", "brick")
     img_wf_off, img_wf_on = render_pair(
@@ -207,7 +207,7 @@ def test_wavefront_brick_render_parity_f32(fixtures_dir, monkeypatch):
 def test_wavefront_brick_overflow_falls_back(fixtures_dir, monkeypatch):
     """A brick too small for the bundle's spread must not corrupt the
     image: overflow triggers the exact-path re-render."""
-    from blacklight_tpu import pipeline_simulation
+    from blacklight import pipeline_simulation
 
     monkeypatch.setattr(pipeline_simulation, "WAVEFRONT_MODE", "brick")
     monkeypatch.setattr(pipeline_simulation, "WAVEFRONT_BRICK", (1, 1, 2))
@@ -222,7 +222,7 @@ def test_wavefront_overflow_falls_back(fixtures_dir, monkeypatch):
     """A capacity too small for the bundle's working set must not corrupt
     the image: the overflow flag triggers a transparent exact-path
     re-render."""
-    from blacklight_tpu import pipeline_simulation
+    from blacklight import pipeline_simulation
 
     monkeypatch.setattr(pipeline_simulation, "WAVEFRONT_CAPACITY", 8)
     img_wf_off, img_wf_on = render_pair(fixtures_dir,
